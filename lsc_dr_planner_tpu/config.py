@@ -118,7 +118,7 @@ class Param:
     slack_mode: SlackMode = SlackMode.NONE
     goal_mode: GoalMode = GoalMode.GRID_BASED_PLANNER
     mapf_mode: MAPFMode = MAPFMode.PIBT
-    # Committed-plan layer (TPU redesign, sim/simulator.py): solve the
+    # Committed-plan layer (this redesign, sim/simulator.py): solve the
     # joint plan with bounded ECBS first — conflict-optimal paths execute
     # cleanly under order-preserving MCP, where PIBT's
     # priority-inheritance dithering (agents shuttled back and forth)
@@ -173,7 +173,7 @@ class Param:
     slack_collision_weight: float = 1.0
     slack_dynamic_weight: float = 1.0
 
-    # QP solver (TPU ADMM; replaces the reference's CPLEX settings)
+    # QP solver (batched ADMM; replaces the reference's CPLEX settings)
     qp_max_iter: int = 200
     qp_rho: float = 0.1
     qp_rho_eq: float = 1000.0
@@ -183,11 +183,11 @@ class Param:
     qp_polish: bool = True
     # Masked-compaction rescue budget for ADMM stragglers (extra
     # iterations on a compacted batch of the worst agents; 0 disables).
-    # PERF_NOTES_r3 §2: stragglers converge by ~1000 iterations.
-    # Monte-Carlo scenario batching keeps this enabled safely: the
-    # scenario step flattens S × A into ONE QP batch so a single rescue
-    # compaction serves every replica (montecarlo.py; the r4 per-lane
-    # rescue OOMed single-chip HBM at S=8 × A=1024).
+    # Stragglers are slow convergers, not infeasible: ~1000 iterations
+    # converge them. Monte-Carlo scenario batching keeps this enabled:
+    # the scenario step flattens S × A into ONE QP batch so a single
+    # rescue compaction serves every replica (montecarlo.py; a per-lane
+    # rescue duplicated its working set per scenario).
     qp_rescue_iter: int = 800
     # Dual warm start: carry each agent's ADMM duals across replanning
     # steps (the constraint families keep their row structure step to
@@ -249,8 +249,8 @@ class Param:
 
     # Batching: maximum number of neighbor obstacles an agent considers in
     # one planning step (constraint tensors are padded to this; extra rows
-    # are masked out). The reference uses dynamic std::vector sizes; TPU
-    # kernels need static shapes.
+    # are masked out). The reference uses dynamic std::vector sizes; the
+    # batched device step needs static shapes.
     max_obstacles: int = 16
 
     def __post_init__(self):

@@ -9,7 +9,7 @@ third_party/grid-pathfinding/graph/src/graph.cpp:371-402).
 
 Host-side numpy: the coarse grid is tiny (~21×21 for the benchmark
 worlds) and feeds the sequential PIBT/ECBS solvers, which run on host
-off the TPU critical path.
+off the device critical path.
 """
 
 from __future__ import annotations

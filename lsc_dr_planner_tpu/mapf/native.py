@@ -2,7 +2,7 @@
 native/ecbs.cpp).
 
 Builds the shared library on demand with g++ (cached next to the
-sources), exposes `solve_pibt` and `solve_ecbs` with the same
+sources, keyed on a hash of them), exposes `solve_pibt` and `solve_ecbs` with the same
 signatures and identical results as the Python implementations
 (shared LCG shuffle for PIBT; strict insertion-counter total orders for
 ECBS), and falls back to Python when no compiler is available.
@@ -11,8 +11,11 @@ ECBS), and falls back to Python when no compiler is available.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import threading
+from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +29,8 @@ _REPO_ROOT = os.path.dirname(
 _SRC = os.path.join(_REPO_ROOT, "native", "mapf.cpp")
 _SRC_ECBS = os.path.join(_REPO_ROOT, "native", "ecbs.cpp")
 _LIB = os.path.join(_REPO_ROOT, "native", "libmapf.so")
+_STAMP = _LIB + ".sha256"  # digest of the sources the library was built from
+_BUILD_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
 _tried = False
@@ -40,10 +45,6 @@ _tried = False
 # entry-count cap was a multi-GB OOM risk on the 2-core hosts) and
 # LOCK-guarded: the Monte-Carlo layer solves scenarios concurrently in
 # a thread pool, and an unguarded get()/move_to_end() races popitem().
-import hashlib
-import threading
-from collections import OrderedDict
-
 _BFS_CACHE: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
 _BFS_CACHE_MAX_BYTES = 128 * 1024 * 1024
 _bfs_cache_bytes = 0
@@ -98,6 +99,34 @@ def _dist_tables(lib, occ: np.ndarray, goals) -> np.ndarray:
     return out
 
 
+def _source_digest(srcs) -> str:
+    """Hash of the C++ sources and the build command: the library is
+    rebuilt whenever it differs from the one recorded beside it, so a
+    copied or stale binary is never loaded."""
+    h = hashlib.sha256(" ".join(_BUILD_FLAGS).encode())
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
+def _build(srcs, digest: str) -> None:
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    subprocess.run(["g++", *_BUILD_FLAGS, *srcs, "-o", tmp],
+                   check=True, capture_output=True)
+    os.replace(tmp, _LIB)
+    with open(_STAMP, "w") as f:
+        f.write(digest)
+
+
+def _recorded_digest() -> Optional[str]:
+    try:
+        with open(_STAMP) as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
 def _load():
     global _lib, _tried
     if _tried:
@@ -105,14 +134,9 @@ def _load():
     _tried = True
     try:
         srcs = [s for s in (_SRC, _SRC_ECBS) if os.path.exists(s)]
-        if not os.path.exists(_LIB) or any(
-            os.path.getmtime(s) > os.path.getmtime(_LIB) for s in srcs
-        ):
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", *srcs,
-                 "-o", _LIB],
-                check=True, capture_output=True,
-            )
+        digest = _source_digest(srcs)
+        if not os.path.exists(_LIB) or _recorded_digest() != digest:
+            _build(srcs, digest)
         lib = ctypes.CDLL(_LIB)
         lib.pibt_solve.restype = ctypes.c_int
         lib.pibt_solve.argtypes = [

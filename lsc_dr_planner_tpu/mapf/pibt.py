@@ -13,7 +13,7 @@ Deterministic: candidate shuffles use a seeded RNG (the reference seeds
 its mt19937 with DEFAULT_SEED=0 per Problem instance).
 
 Host-side: PIBT is inherently sequential (priority inheritance
-recursion) and costs ~0.03 ms/agent in the reference — far off the TPU
+recursion) and costs ~0.03 ms/agent in the reference — far off the device
 critical path. A C++ native implementation is provided in native/
 with this module as behavioral reference and fallback.
 """

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -403,4 +404,195 @@ def generate_random_mission(
                 goal=np.array([goals[qi, 0], goals[qi, 1], z]),
             )
         )
+    return m
+
+
+# ----------------------------------------------------------------------
+# Seeded worlds and missions (no mission files needed)
+# ----------------------------------------------------------------------
+
+
+def random_world(rng, kind, half):
+    """Random obstacle boxes [N, 6] (cx, cy, cz, sx, sy, sz) in the
+    square [-half, half]²: a forest-like scatter or a maze-like wall
+    field (`kind` ∈ {"forest", "maze"})."""
+    boxes = []
+    if kind == "forest":
+        n = int(rng.integers(10, 40))
+        for _ in range(n):
+            s = rng.uniform(0.3, 0.9)
+            cx, cy = rng.uniform(-half + 1, half - 1, 2)
+            boxes.append([cx, cy, 1.0, s, s, 2.0])
+    else:  # maze-like wall field
+        # Wall center lines snap to the 0.5 m MAPF-grid CELL-CENTER
+        # lattice, like the reference's maze worlds: a thin wall at an
+        # arbitrary offset can slice the transition between two free
+        # cell centers without marking either cell occupied — a world
+        # family outside the (cell-based) grid semantics of both the
+        # reference and this repo, which livelocks the waypoint layer
+        # by construction.
+        def snap_center(v):
+            # grid NODES sit on multiples of 0.5 (build_coarse_grid)
+            return np.round(v / 0.5) * 0.5
+
+        n = int(rng.integers(6, 16))
+        for _ in range(n):
+            L = rng.uniform(1.0, 2.0 * half - 2.0)
+            cx, cy = rng.uniform(-half + 1, half - 1, 2)
+            if rng.random() < 0.5:
+                boxes.append([cx, snap_center(cy), 1.0, L, 0.1, 2.0])
+            else:
+                boxes.append([snap_center(cx), cy, 1.0, 0.1, L, 2.0])
+    return np.asarray(boxes).reshape(-1, 6)
+
+
+def _occ_grid(boxes, half, res, clearance):
+    n = int(np.ceil(2 * half / res))
+    occ = np.zeros((n, n), bool)
+    xs = -half + (np.arange(n) + 0.5) * res
+    for cx, cy, _, sx, sy, _ in boxes:
+        x0 = cx - sx / 2 - clearance
+        x1 = cx + sx / 2 + clearance
+        y0 = cy - sy / 2 - clearance
+        y1 = cy + sy / 2 + clearance
+        ix = np.nonzero((xs > x0) & (xs < x1))[0]
+        iy = np.nonzero((xs > y0) & (xs < y1))[0]
+        if len(ix) and len(iy):
+            occ[ix[0]:ix[-1] + 1, iy[0]:iy[-1] + 1] = True
+    return occ, xs
+
+
+def _connected(occ, a, b):
+    if occ[a] or occ[b]:
+        return False
+    seen = {a}
+    q = deque([a])
+    X, Y = occ.shape
+    while q:
+        x, y = q.popleft()
+        if (x, y) == b:
+            return True
+        for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            nx, ny = x + dx, y + dy
+            if 0 <= nx < X and 0 <= ny < Y and not occ[nx, ny] \
+                    and (nx, ny) not in seen:
+                seen.add((nx, ny))
+                q.append((nx, ny))
+    return False
+
+
+def make_mission(rng, A, boxes, half, radius=0.15) -> Optional[Mission]:
+    """Random 2-D mission in `boxes` with obstacle-clear, pairwise-
+    separated, connectivity-checked starts/goals on the 0.5 m grid.
+    Returns None when sampling fails (draw another world)."""
+    res = 0.5
+    occ, xs = _occ_grid(boxes, half, res, clearance=radius + 0.2)
+
+    def box_clearance(pt):
+        """L2 distance from pt to the nearest box (2-D)."""
+        if len(boxes) == 0:
+            return np.inf
+        b = np.asarray(boxes)
+        dx = np.maximum(np.abs(pt[0] - b[:, 0]) - b[:, 3] / 2, 0.0)
+        dy = np.maximum(np.abs(pt[1] - b[:, 1]) - b[:, 4] / 2, 0.0)
+        return float(np.min(np.hypot(dx, dy)))
+
+    def cell_of(p):
+        return (int(np.clip((p[0] + half) / res, 0, len(xs) - 1)),
+                int(np.clip((p[1] + half) / res, 0, len(xs) - 1)))
+
+    free_cells = np.argwhere(~occ)
+    if len(free_cells) < 4 * A:
+        return None
+
+    def sample_set(exclude):
+        pts = []
+        for _ in range(A):
+            for _a in range(3000):
+                c = free_cells[rng.integers(len(free_cells))]
+                p = np.array([-half + (c[0] + 0.5) * res,
+                              -half + (c[1] + 0.5) * res])
+                p = np.round(p / res) * res
+                # the 0.5-lattice rounding can push edge cells OUT of the
+                # world box: an agent born outside the fine lattice is
+                # infeasible from step 0 and reads as a deadlock
+                if np.max(np.abs(p)) > half - 0.3:
+                    continue
+                if occ[cell_of(p)]:
+                    continue
+                # the ROUNDED point must itself be flyable-to: within
+                # radius+0.25 of a box face the fine-lattice inflation
+                # blocks its cell, the SFC can never contain it, and a
+                # goal there pins the goal LP short of it forever
+                if box_clearance(p) < radius + 0.25:
+                    continue
+                if all(np.linalg.norm(p - q) >= 0.7 for q in pts + exclude):
+                    pts.append(p)
+                    break
+            else:
+                return None
+        return pts
+
+    starts = sample_set([])
+    if starts is None:
+        return None
+    goals = sample_set([])
+    if goals is None:
+        return None
+    for s, g in zip(starts, goals):
+        if not _connected(occ, cell_of(s), cell_of(g)):
+            return None
+
+    m = generate_random_mission(
+        A, [-half, -half, 0.0], [half, half, 2.5], radius=radius, seed=0,
+        min_separation=0.0,
+    )
+    m.world_boxes = boxes
+    for i, a in enumerate(m.agents):
+        a.start = np.array([starts[i][0], starts[i][1], 0.6])
+        a.goal = np.array([goals[i][0], goals[i][1], 0.6])
+    return m
+
+
+def lattice_forest(A: int, seed: int = 0):
+    """Open-forest fleet at the upstream's density: a jittered 1.2 m
+    agent lattice flying to antipodal goals through 0.3 m columns at
+    0.25 columns/m², kept clear of starts and goals.
+
+    Returns (starts [A, 2], goals [A, 2], boxes [T, 6], half) with the
+    world spanning [-half, half]² × [0, 1]."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(A)))
+    gx, gy = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    lattice = np.stack([gx, gy], -1).reshape(-1, 2)[:A] * 1.2
+    lattice = lattice - lattice.mean(0)
+    starts = lattice + rng.uniform(-0.2, 0.2, (A, 2))
+    goals = -starts + rng.uniform(-0.2, 0.2, (A, 2))
+
+    half = 0.6 * side + 2.0
+    n_trees = int(0.25 * (2 * half) ** 2)
+    keep = np.concatenate([starts, goals], 0)
+    trees = []
+    for _ in range(n_trees * 3):
+        if len(trees) >= n_trees:
+            break
+        c = rng.uniform(-half + 0.5, half - 0.5, 2)
+        if np.min(np.linalg.norm(keep - c, axis=-1)) > 0.6:
+            trees.append([c[0], c[1], 0.5, 0.3, 0.3, 1.0])
+    boxes = np.asarray(trees) if trees else np.zeros((0, 6))
+    return starts, goals, boxes, half
+
+
+def lattice_forest_mission(A: int, seed: int = 0, z: float = 0.6) -> Mission:
+    """`lattice_forest` as a Mission for `MultiSyncSimulator`."""
+    starts, goals, boxes, half = lattice_forest(A, seed)
+    m = generate_random_mission(1, [-half, -half, 0.0], [half, half, 1.0])
+    proto = m.agents[0]
+    m.agents = [
+        dataclasses.replace(proto, id=i, cid=i,
+                            start=np.array([starts[i, 0], starts[i, 1], z]),
+                            goal=np.array([goals[i, 0], goals[i, 1], z]))
+        for i in range(A)
+    ]
+    m.world_boxes = boxes
     return m

@@ -196,7 +196,7 @@ def min_distance_between_curves(
     candidates, falling back to the nearer endpoint when no interior
     minimum exists.
 
-    TPU-native design: the dynamic isolation queue becomes a static
+    Batched design: the dynamic isolation queue becomes a static
     sign-change scan of g over a fixed n_grid-cell grid (g has ≤ 2n−1
     real roots; 64 cells isolate any minima separated by > 1/64 of the
     segment), each cell refined by fixed-count branch-free bisection and

@@ -3,7 +3,7 @@
 Capability parity with the reference's geometry toolbox (reference:
 include/geometry.hpp — point/segment :31-102, simultaneous line paths
 :105-127, segment–segment :174-264, point–convex-hull via openGJK
-:266-296) re-designed for TPU: everything is branch-free, fixed-shape,
+:266-296) re-designed for batched accelerators: everything is branch-free, fixed-shape,
 and batches over arbitrary leading axes.
 
 The point-to-convex-hull query (the LSC normal-vector op, reference

@@ -1,4 +1,4 @@
-"""Batched trajectory QP — the TPU replacement for per-agent CPLEX.
+"""Batched trajectory QP — the batched replacement for per-agent CPLEX.
 
 Solves, for every agent at once, the reference's control-point QP
 (reference: TrajOptimizer::solve/populatebyrow,
@@ -13,7 +13,7 @@ src/traj_optimizer.cpp:18-156, 216-514):
          communication-range pair coupling
          world ∩ SFC ∩ waypoint-range variable bounds
 
-TPU-first solver design:
+Batched solver design:
 
   * ALL equality constraints (pins, junctions, continuity, stop) are
     data-independent per spatial dimension, so they are eliminated
@@ -66,9 +66,8 @@ class QPConfig(NamedTuple):
     eps_abs: float
     # masked-compaction rescue: agents still infeasible after max_iter
     # are gathered into a small batch and iterated up to rescue_iter
-    # more (0 disables). Forensics (PERF_NOTES_r3 §2): the bench
-    # stragglers are slow convergers, not infeasible — 1000 iterations
-    # converge 0.999.
+    # more (0 disables). The bench stragglers are slow convergers, not
+    # infeasible — 1000 iterations converge 0.999 of them.
     rescue_iter: int = 0
 
     @property
@@ -421,7 +420,7 @@ def _solver_statics(cfg: QPConfig):
         "N_null": N_null, "X_pin": X_pin, "N3": N3, "K": K,
         "P_base": P_base, "Pn_base": Pn_base, "T_term": T_term,
         "T_lsc": T_lsc, "G_stat": G_stat, "Smm": Smm, "Smi": Smi,
-        "An_stat": An_stat,
+        "An_stat": An_stat, "An_sd": An_sd,
     }
 
 
@@ -471,8 +470,20 @@ def _rows_adjoint(cfg: QPConfig, y, normals, statics):
 
 
 
-def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3) -> QPResult:
+def default_loop() -> str:
+    """The ADMM loop `solve` runs when none is named: the Triton kernel
+    on a GPU backend, the XLA loop elsewhere."""
+    return "triton" if jax.default_backend() == "gpu" else "xla"
+
+
+def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3,
+          loop: str | None = None) -> QPResult:
     """Solve all agents' QPs in one fused batched ADMM.
+
+    `loop` picks the iteration loop: "xla" (the reference), "triton"
+    (ops/qp_pallas.py compiled for the GPU), "interpret" (the same
+    kernel interpreted on the CPU, for tests), or None for
+    `default_loop()`.
 
     OSQP-style iteration on the equality-reduced variables ξ (x = x_p +
     N·ξ per dim), with:
@@ -608,11 +619,20 @@ def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3) -> QPResult:
             return (xi_n, z_n, y_n, Ax_n), None
 
         def chunk_step(state):
-            xi, z, y, Ax, ck, itdone, best_obj, noimp, _ = state
-            xi_prev = xi
+            xi_prev, z0, y0, Ax0, ck, itdone, best_obj, noimp, done, _ = state
             (xi, z, y, Ax), _ = jax.lax.scan(
-                one_iter, (xi, z, y, Ax), None, length=CHUNK, unroll=CHUNK
+                one_iter, (xi_prev, z0, y0, Ax0), None, length=CHUNK,
+                unroll=CHUNK,
             )
+            # an agent's iterate freezes at its first certified chunk, so
+            # its solution does not depend on which agents share the
+            # batch (the Triton kernel exits per agent the same way)
+            def keep(new, old):
+                return jnp.where(done.reshape((B,) + (1,) * (new.ndim - 1)),
+                                 old, new)
+
+            xi, z, y, Ax = (keep(xi, xi_prev), keep(z, z0), keep(y, y0),
+                            keep(Ax, Ax0))
             it = (ck + 1) * CHUNK
             # per-agent feasibility of the actual iterate (row-scaled)
             viol = jnp.maximum(jnp.maximum(ln_b - Ax, Ax - un_b), 0.0)
@@ -645,48 +665,47 @@ def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3) -> QPResult:
             )
             best_obj = jnp.where(feas & improved, obj_now, best_obj)
             noimp = jnp.where(feas & ~improved, noimp + 1, jnp.int32(0))
-            done_a = feas & (opt | stalled | (noimp >= 2))
+            done_a = done | (feas & (opt | stalled | (noimp >= 2)))
             itdone = jnp.where(
                 done_a & (itdone == max_iter), jnp.int32(it), itdone
             )
             return (
-                xi, z, y, Ax, ck + 1, itdone, best_obj, noimp,
+                xi, z, y, Ax, ck + 1, itdone, best_obj, noimp, done_a,
                 jnp.all(done_a),
             )
 
         def cond(state):
-            ck, all_done = state[4], state[8]
+            ck, all_done = state[4], state[9]
             return (ck < n_chunks) & jnp.logical_not(all_done)
 
         never = jnp.full((B,), max_iter, jnp.int32)
         state = (
             xi_i, z_i, y_i, fwd_b(xi_i), jnp.int32(0), never,
             jnp.full((B,), jnp.inf, dtype), jnp.zeros((B,), jnp.int32),
-            jnp.asarray(False),
+            jnp.zeros((B,), bool), jnp.asarray(False),
         )
-        xi, z, y, _, ck_f, itdone, _, _, _ = jax.lax.while_loop(
+        xi, z, y, _, ck_f, itdone, _, _, _, _ = jax.lax.while_loop(
             cond, chunk_step, state
         )
         return xi, z, y, itdone, ck_f * CHUNK
 
-    # ---- iteration-loop dispatch: Pallas kernel (TPU) or XLA ----------
-    # The Pallas kernel (ops/qp_pallas.py) runs the same chunked loop
-    # VMEM-resident — the XLA lowering measured 11× off HBM
-    # speed-of-light (tools/qp_profile.py). The XLA loop remains the
-    # reference path and serves the CPU backend.
-    from lsc_dr_planner_tpu.ops import qp_pallas
-
-    _mode = qp_pallas.pallas_mode()
+    # ---- iteration-loop dispatch: Triton kernel (GPU) or XLA ----------
+    if loop is None:
+        loop = default_loop()
+    if loop not in ("xla", "triton", "interpret"):
+        raise ValueError(f"unknown ADMM loop {loop!r}")
 
     def run_loop(B_, normals_, Kinv_, Pn_, qn_, ln_, un_, rho_, scale_,
                  xi_, z_, y_, max_it):
-        if _mode == "off":
+        if loop == "xla":
             return admm_loop(B_, normals_, Kinv_, Pn_, qn_, ln_, un_,
                              rho_, scale_, xi_, z_, y_, max_it)
+        from lsc_dr_planner_tpu.ops import qp_pallas
+
         return qp_pallas.admm_loop_pallas(
             cfg, st, normals_, Kinv_, Pn_, qn_, ln_, un_, scale_,
             xi_, z_, y_, max_it, feas_tol,
-            interpret=(_mode == "interpret"),
+            interpret=(loop == "interpret"),
         )
 
     xi, z, y, itdone, iters = run_loop(
@@ -696,7 +715,7 @@ def solve(cfg: QPConfig, inputs: QPInputs, feas_tol: float = 5e-3) -> QPResult:
 
     # ---- masked-compaction rescue -------------------------------------
     # Stragglers (feasibility still above tolerance at the cap) are slow
-    # convergers, not infeasible (PERF_NOTES_r3 §2). Small fleets just
+    # convergers, not infeasible. Small fleets just
     # keep iterating in place (the early exit makes the extra bound free
     # when it isn't needed); large fleets gather the worst RESCUE agents
     # into a compact batch so 1000-iteration tails don't drag 1024

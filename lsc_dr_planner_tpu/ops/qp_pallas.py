@@ -1,383 +1,319 @@
-"""Pallas TPU kernel for the batched ADMM iteration loop (SURVEY §7
-phase 4; VERDICT r4 #3).
+"""Pallas GPU kernel (Triton route) for the batched ADMM iteration loop.
 
-The XLA lowering of the chunked ADMM loop (ops/qp.py::admm_loop) runs at
-~11× its HBM speed-of-light on a v5e chip (tools/qp_profile.py): every
-iteration streams the per-agent state (z, y, bounds, Kinv) through HBM
-and materialises each tiny einsum separately. This kernel keeps the
-ENTIRE working set VMEM-resident for a block of agents and runs the
-whole iteration loop — including the per-chunk convergence checks and
-early exit — inside one kernel invocation, so per-iteration HBM traffic
-is zero.
+On the GPU, XLA runs `ops/qp.py::admm_loop` as a `while_loop` whose
+body is eight unrolled iterations of a dozen small fusions, so every
+chunk pays many kernel launches plus the loop predicate's trip to the
+host, while each iteration moves only a few bytes per agent. This kernel
+runs the whole chunked loop, convergence checks and early exit
+included, inside one launch.
 
-Design (per agent-block of B = 64, grid over blocks):
+Design for Hopper:
 
-  * split row layout: the LSC family (one-sided rows, unit residual
-    scale, one shared ρ) lives as [B, O, M·N]; the static families
-    (vel/acc/comm/bound) as [B, R_stat] with a SHARED per-row ρ vector —
-    the per-agent flat [A, R] bound/ρ/scale tensors of the XLA path
-    carry per-agent copies of constants.
-  * all GEMMs are against SHARED matrices (An_stat, N3) with the agent
-    block as the M dimension; the per-agent KKT-inverse matvec is an
-    elementwise-multiply + lane reduction (dk = dim·K ≤ 128 lanes).
-  * per-chunk exit test (feasibility + iterate stall + objective
-    patience — the same gates as the XLA loop, minus the redundant
-    dual-residual test, which the patience gate subsumes within two
-    chunks) runs on VMEM state; a block exits when ALL its agents are
-    done, independent of other blocks (the XLA loop's exit is global —
-    block-local exit only ever runs FEWER iterations on early blocks).
+  * one agent per program (grid over agents): an agent's working set in
+    2-D (LSC rows [16, 64], static rows [2, 256], its KKT inverse as
+    2×2 blocks of [32, 32]) is ~30 K floats, which the registers of
+    eight warps hold; a larger agent block would spill to local memory.
+  * the per-iteration products are against the SHARED per-dimension
+    operators (`An_sd` [256, 32] for the vel/acc/comm/bound rows, `N3`
+    [32, 64] for the LSC rows), read from L1/L2, and the per-agent
+    KKT-inverse matvec; all are broadcast-multiply + reduce, because the
+    matvec batch of one agent has no GEMM shape for the tensor cores.
+  * every axis is padded to a power of two with benign rows (zero
+    operator rows, ±inf bounds, unit ρ), which stay exactly zero.
+  * every exit gate of the XLA loop is kept — feasibility, relative dual
+    residual, iterate stall, objective patience — so the kernel is a
+    drop-in for `admm_loop`. Each agent exits on its own; the loop's
+    global trip count is the max taken outside the kernel.
 
-The XLA path remains the reference implementation and the CPU backend
-(tests, dryrun); `ops/qp.py::solve` dispatches here on TPU. Equivalence
-is asserted by tests/test_qp_pallas.py in interpret mode and by the
-feasibility audit on every mission (both paths must satisfy the same
-row gate).
+The XLA loop stays the reference and the CPU path; `qp.solve(...,
+loop=...)` chooses. `interpret=True` runs the kernel on the CPU (tests).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from lsc_dr_planner_tpu.ops import qp as qpmod
 
 _INF = 1e20
-BLOCK = 64  # agents per kernel block
 CHUNK = 8  # iterations between convergence checks (matches the XLA loop)
+NUM_WARPS = 8
 
 
-def pallas_mode() -> str:
-    """'on' (TPU backend), 'interpret' (forced, for CPU tests), or 'off'.
+def _p2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
-    Env override LSC_QP_PALLAS in {0, 1, interpret}."""
-    env = os.environ.get("LSC_QP_PALLAS", "").lower()
-    if env in ("0", "off", "false"):
-        return "off"
-    if env == "interpret":
-        return "interpret"
-    if env in ("1", "on", "true"):
-        return "on"
-    return "on" if jax.default_backend() == "tpu" else "off"
+
+@functools.lru_cache(maxsize=None)
+def _layout(cfg, K: int):
+    """Static padding plan and the flat-static-row ↔ per-dim permutation.
+
+    The XLA path lays the static rows out family-major with dim-major
+    rows inside each family (`constraint_bounds`); the kernel keeps one
+    [dim, RSP] block per dimension in `An_sd` row order. Returns
+    (KP, MNP, OP, RSP, to_dim [dim·RSP] gather index into the flat static
+    rows with R_stat as the pad sentinel, from_dim [R_stat] gather index
+    into the flattened per-dim rows, rho_dim [RSP])."""
+    dim, M, n, N = cfg.dim, cfg.M, cfg.n, cfg.N
+    counts = [M * n, M * (n - 1)]
+    rhos = [qpmod._RHO_SCALE["vel"], qpmod._RHO_SCALE["acc"]]
+    if cfg.use_comm:
+        counts.append(M * (M + 1) // 2)
+        rhos.append(qpmod._RHO_SCALE["comm"])
+    counts.append(M * N)
+    rhos.append(qpmod._RHO_SCALE["bound"])
+    R_dim = sum(counts)
+    R_stat = dim * R_dim
+    KP, MNP, OP, RSP = _p2(K), _p2(M * N), _p2(cfg.n_obs), _p2(R_dim)
+
+    to_dim = np.full((dim, RSP), R_stat, np.int32)
+    from_dim = np.zeros(R_stat, np.int32)
+    rho_dim = np.ones(RSP, np.float32)
+    fam_off = 0  # offset of the family in the flat static rows
+    row_off = 0  # offset of the family in one dimension's rows
+    for cnt, rs in zip(counts, rhos):
+        rho_dim[row_off:row_off + cnt] = cfg.rho * rs
+        for d in range(dim):
+            flat = fam_off + d * cnt + np.arange(cnt)
+            to_dim[d, row_off:row_off + cnt] = flat
+            from_dim[flat] = d * RSP + row_off + np.arange(cnt)
+        fam_off += dim * cnt
+        row_off += cnt
+    return KP, MNP, OP, RSP, to_dim.reshape(-1), from_dim, rho_dim
 
 
 def admm_loop_pallas(cfg, statics, normals, Kinv, Pn, qn, ln, un,
                      scale, xi0, z0, y0, max_iter: int, feas_tol: float,
                      interpret: bool = False):
     """Drop-in equivalent of ops/qp.py::admm_loop (same inputs in the
-    flat row layout, same outputs) running the loop in a Pallas kernel.
+    flat row layout, same outputs) running the loop in a Triton kernel.
 
     normals: [A, O, M, dim]; Kinv: [A, dk, dk]; Pn: [A, K, K];
     qn: [A, dim, K]; ln/un/scale: [A, R]; xi0: [A, dim, K];
     z0/y0: [A, R]. Returns (xi, z, y, itdone, iters_scalar).
     """
-    dim, M, n, N, O = cfg.dim, cfg.M, cfg.n, cfg.N, cfg.n_obs
+    dim, M, N, O = cfg.dim, cfg.M, cfg.N, cfg.n_obs
     MN = M * N
     K = statics["K"]
-    dk = dim * K
     A = normals.shape[0]
     R_lsc = O * MN
-    R = ln.shape[1]
-    R_stat = R - R_lsc
     f32 = jnp.float32
+    KP, MNP, OP, RSP, to_dim, from_dim, rho_dim = _layout(cfg, K)
 
-    An_stat = jnp.asarray(statics["An_stat"], f32)  # [R_stat, dk]
-    N3k = jnp.asarray(
-        statics["N3"].transpose(2, 0, 1).reshape(K, MN), f32
-    )  # [K, MN]
-    # static family ρ row vector (identical across agents by
-    # construction — see ops/qp.py::_solver_statics rho_dim)
-    from lsc_dr_planner_tpu.ops import qp as qpmod
+    def pad_to(x, shape, fill=0.0):
+        return jnp.pad(x, [(0, s - d) for d, s in zip(x.shape, shape)],
+                       constant_values=fill)
 
-    rho_l = float(cfg.rho * qpmod._RHO_SCALE["lsc"])
-    rho_s_np = _rho_stat(cfg)  # np [R_stat]
-    assert rho_s_np.shape[0] == R_stat
+    def lsc_rows(v, fill=0.0):  # [A, R_lsc] → [A, OP, MNP]
+        return pad_to(v[:, :R_lsc].reshape(A, O, MN), (A, OP, MNP), fill)
 
-    # ---- pad the agent axis to a BLOCK multiple with benign problems --
-    A_pad = -(-A // BLOCK) * BLOCK
-    pad = A_pad - A
+    def stat_rows(v, fill):  # flat static rows → [A, dim, RSP]
+        ext = jnp.concatenate(
+            [v[:, R_lsc:], jnp.full((A, 1), fill, v.dtype)], axis=-1)
+        return ext[:, to_dim].reshape(A, dim, RSP)
 
-    def padv(x, fill=0.0):
-        if pad == 0:
-            return x
-        return jnp.concatenate(
-            [x, jnp.full((pad,) + x.shape[1:], fill, x.dtype)], axis=0
-        )
+    nd = pad_to(jnp.repeat(normals, N, axis=2).transpose(0, 3, 1, 2),
+                (A, dim, OP, MNP))
+    kinv = pad_to(Kinv.reshape(A, dim, K, dim, K).transpose(0, 1, 3, 2, 4),
+                  (A, dim, dim, KP, KP))
+    An = np.zeros((RSP, KP), np.float32)
+    An[:statics["An_sd"].shape[0], :K] = statics["An_sd"]
+    N3k = np.zeros((KP, MNP), np.float32)
+    N3k[:K, :MN] = statics["N3"].transpose(2, 0, 1).reshape(K, MN)
 
-    # per-dim expanded normals [A, O, MN] (n repeated over the N lanes
-    # of each segment)
-    nexp = jnp.repeat(normals, N, axis=2)  # [A, O, M*N, dim]
-    nd = [padv(nexp[..., d]) for d in range(dim)]
+    args = (
+        nd, kinv, pad_to(Pn, (A, KP, KP)), pad_to(qn, (A, dim, KP)),
+        lsc_rows(ln, -_INF), stat_rows(ln, -_INF), stat_rows(un, _INF),
+        stat_rows(1.0 / scale, 1.0), pad_to(xi0, (A, dim, KP)),
+        lsc_rows(z0), stat_rows(z0, 0.0), lsc_rows(y0), stat_rows(y0, 0.0),
+        jnp.asarray(An), jnp.asarray(N3k), jnp.asarray(rho_dim),
+    )
 
-    Kinv_p = padv(Kinv)
-    if pad:
-        eye = jnp.broadcast_to(jnp.eye(dk, dtype=f32), (pad, dk, dk))
-        Kinv_p = Kinv_p.at[A:].set(eye)
-    Pn_p = padv(Pn)
-    qn_p = padv(qn.reshape(A, dk))
-    ln_l = padv(ln[:, :R_lsc].reshape(A, O, MN), -_INF)
-    ln_s = padv(ln[:, R_lsc:], -_INF)
-    un_s = padv(un[:, R_lsc:], _INF)
-    sinv_s = padv(1.0 / scale[:, R_lsc:], 1.0)
-    xi_p = padv(xi0.reshape(A, dk))
-    z_l = padv(z0[:, :R_lsc].reshape(A, O, MN))
-    z_s = padv(z0[:, R_lsc:])
-    y_l = padv(y0[:, :R_lsc].reshape(A, O, MN))
-    y_s = padv(y0[:, R_lsc:])
+    def agent(*shape):  # one agent's block, agent axis squeezed
+        return pl.BlockSpec((None,) + shape,
+                            lambda i: (i,) + (0,) * len(shape))
 
-    n_blocks = A_pad // BLOCK
-    n_chunks = max(1, -(-max_iter // CHUNK))
-    rho_s = jnp.asarray(rho_s_np, f32)  # [R_stat], shared
+    def shared(*shape):
+        return pl.BlockSpec(shape, lambda i: (0,) * len(shape))
 
     kern = functools.partial(
-        _admm_block_kernel, dim=dim, K=K, O=O, MN=MN, dk=dk,
-        R_stat=R_stat, n_chunks=n_chunks, max_iter=max_iter,
-        feas_tol=feas_tol, rho_l=rho_l, alpha=float(cfg.alpha),
+        _admm_agent_kernel, dim=dim, n_chunks=max(1, -(-max_iter // CHUNK)),
+        max_iter=max_iter, stop_tol=0.6 * feas_tol, eps_abs=cfg.eps_abs,
+        rho_l=float(cfg.rho * qpmod._RHO_SCALE["lsc"]),
+        alpha=float(cfg.alpha),
         sigma=float(cfg.sigma),
     )
-
-    def blk(shape):
-        return pl.BlockSpec((BLOCK,) + shape[1:],
-                            lambda i: (i,) + (0,) * (len(shape) - 1),
-                            memory_space=pltpu.VMEM)
-
-    def shared(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
+    out_shapes = [
+        ((dim, KP), f32), ((OP, MNP), f32), ((dim, RSP), f32),
+        ((OP, MNP), f32), ((dim, RSP), f32), ((1,), jnp.int32),
+        ((1,), jnp.int32),
+    ]
     outs = pl.pallas_call(
         kern,
-        grid=(n_blocks,),
+        grid=(A,),
         in_specs=[
-            *[blk((A_pad, O, MN))] * dim,        # nd (per-dim normals)
-            blk((A_pad, dk, dk)),                 # Kinv
-            blk((A_pad, K, K)),                   # Pn
-            blk((A_pad, dk)),                     # qn
-            blk((A_pad, O, MN)),                  # ln_l
-            blk((A_pad, R_stat)),                 # ln_s
-            blk((A_pad, R_stat)),                 # un_s
-            blk((A_pad, R_stat)),                 # sinv_s
-            blk((A_pad, dk)),                     # xi0
-            blk((A_pad, O, MN)),                  # z_l
-            blk((A_pad, R_stat)),                 # z_s
-            blk((A_pad, O, MN)),                  # y_l
-            blk((A_pad, R_stat)),                 # y_s
-            shared((R_stat, dk)),                 # An_stat
-            shared((K, MN)),                      # N3k
-            shared((1, R_stat)),                  # rho_s
+            agent(dim, OP, MNP), agent(dim, dim, KP, KP), agent(KP, KP),
+            agent(dim, KP), agent(OP, MNP), agent(dim, RSP),
+            agent(dim, RSP), agent(dim, RSP), agent(dim, KP),
+            agent(OP, MNP), agent(dim, RSP), agent(OP, MNP),
+            agent(dim, RSP), shared(RSP, KP), shared(KP, MNP),
+            shared(RSP),
         ],
-        out_specs=[
-            blk((A_pad, dk)),                     # xi
-            blk((A_pad, O, MN)),                  # z_l
-            blk((A_pad, R_stat)),                 # z_s
-            blk((A_pad, O, MN)),                  # y_l
-            blk((A_pad, R_stat)),                 # y_s
-            blk((A_pad, 1)),                      # itdone (f32)
-            blk((A_pad, 1)),                      # iters  (f32)
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((A_pad, dk), f32),
-            jax.ShapeDtypeStruct((A_pad, O, MN), f32),
-            jax.ShapeDtypeStruct((A_pad, R_stat), f32),
-            jax.ShapeDtypeStruct((A_pad, O, MN), f32),
-            jax.ShapeDtypeStruct((A_pad, R_stat), f32),
-            jax.ShapeDtypeStruct((A_pad, 1), f32),
-            jax.ShapeDtypeStruct((A_pad, 1), f32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((BLOCK, dk), f32),         # xi state
-            pltpu.VMEM((BLOCK, O, MN), f32),      # z_l state
-            pltpu.VMEM((BLOCK, R_stat), f32),     # z_s state
-            pltpu.VMEM((BLOCK, O, MN), f32),      # y_l state
-            pltpu.VMEM((BLOCK, R_stat), f32),     # y_s state
-            pltpu.VMEM((BLOCK, O, MN), f32),      # Ax_l state
-            pltpu.VMEM((BLOCK, R_stat), f32),     # Ax_s state
-            pltpu.VMEM((BLOCK, 1), f32),          # best_obj
-            pltpu.VMEM((BLOCK, 1), f32),          # noimp
-            pltpu.VMEM((BLOCK, 1), f32),          # itdone
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        out_specs=[agent(*s) for s, _ in out_shapes],
+        out_shape=[jax.ShapeDtypeStruct((A,) + s, t) for s, t in out_shapes],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(*nd, Kinv_p, Pn_p, qn_p, ln_l, ln_s, un_s, sinv_s, xi_p,
-      z_l, z_s, y_l, y_s, An_stat, N3k, rho_s.reshape(1, R_stat))
+        name="admm_loop",
+    )(*args)
 
-    xi_o, zl_o, zs_o, yl_o, ys_o, itdone_o, iters_o = outs
-    xi = xi_o[:A].reshape(A, dim, K)
-    z = jnp.concatenate([zl_o[:A].reshape(A, R_lsc), zs_o[:A]], axis=-1)
-    y = jnp.concatenate([yl_o[:A].reshape(A, R_lsc), ys_o[:A]], axis=-1)
-    itdone = itdone_o[:A, 0].astype(jnp.int32)
-    iters = jnp.max(iters_o[:, 0]).astype(jnp.int32)
-    return xi, z, y, itdone, iters
+    xi_o, zl_o, zs_o, yl_o, ys_o, itd_o, ck_o = outs
+
+    def unstat(v):  # [A, dim, RSP] → flat static rows
+        return v.reshape(A, dim * RSP)[:, from_dim]
+
+    def unlsc(v):
+        return v[:, :O, :MN].reshape(A, R_lsc)
+
+    xi = xi_o[:, :, :K]
+    z = jnp.concatenate([unlsc(zl_o), unstat(zs_o)], axis=-1)
+    y = jnp.concatenate([unlsc(yl_o), unstat(ys_o)], axis=-1)
+    return xi, z, y, itd_o[:, 0], jnp.max(ck_o[:, 0]) * CHUNK
 
 
-def _admm_block_kernel(*refs, dim, K, O, MN, dk, R_stat, n_chunks,
-                       max_iter, feas_tol, rho_l, alpha, sigma):
-    (nd_refs, rest) = (refs[:dim], refs[dim:])
-    (Kinv_r, Pn_r, qn_r, lnl_r, lns_r, uns_r, sinv_r, xi0_r,
-     z0l_r, z0s_r, y0l_r, y0s_r, An_r, N3k_r, rhos_r,
-     xi_o, zl_o, zs_o, yl_o, ys_o, itdone_o, iters_o,
-     xi_s, zl_s, zs_s, yl_s, ys_s, axl_s, axs_s, best_s, noimp_s,
-     itd_s) = rest
+def _admm_agent_kernel(nd_r, kinv_r, pn_r, qn_r, lnl_r, lns_r, uns_r,
+                       sinv_r, xi0_r, zl0_r, zs0_r, yl0_r, ys0_r, an_r,
+                       n3k_r, rhos_r, xi_o, zl_o, zs_o, yl_o, ys_o, itd_o,
+                       ck_o, *, dim, n_chunks, max_iter, stop_tol, eps_abs,
+                       rho_l, alpha, sigma):
+    eps_rel = 1e-3
+    dims = range(dim)
 
-    B = xi0_r.shape[0]
-    f32 = jnp.float32
-    eps_stall = 1e-4
-    stop_tol = 0.6 * feas_tol
-
-    nd = [nd_refs[d][:] for d in range(dim)]  # [B, O, MN] each
-    An = An_r[:]          # [R_stat, dk]
-    N3k = N3k_r[:]        # [K, MN]
-    rho_s = rhos_r[0, :]  # [R_stat]
-    Kinv = Kinv_r[:]      # [B, dk, dk]
-    Pn = Pn_r[:]          # [B, K, K]
-    qn = qn_r[:]          # [B, dk]
-    ln_l = lnl_r[:]
-    ln_s = lns_r[:]
-    un_s = uns_r[:]
-    sinv = sinv_r[:]
+    an = an_r[...]  # [RSP, KP]
+    n3k = n3k_r[...]  # [KP, MNP]
+    rho_s = rhos_r[...]  # [RSP]
+    pn = pn_r[...]  # [KP, KP]
+    nd = [nd_r[d] for d in dims]  # [OP, MNP] each
+    kinv = [[kinv_r[d, e] for e in dims] for d in dims]  # [KP, KP]
+    qn = [qn_r[d] for d in dims]  # [KP]
+    ln_l = lnl_r[...]
+    ln_s = [lns_r[d] for d in dims]
+    un_s = [uns_r[d] for d in dims]
+    sinv = [sinv_r[d] for d in dims]
 
     def fwd(xi):
-        """A·ξ in split layout: ([B, O, MN], [B, R_stat])."""
-        zt_l = jnp.zeros((B, O, MN), f32)
-        for d in range(dim):
-            u_d = jnp.dot(xi[:, d * K:(d + 1) * K], N3k,
-                          preferred_element_type=f32)  # [B, MN]
-            zt_l = zt_l + nd[d] * u_d[:, None, :]
-        zt_s = jnp.dot(xi, An.T, preferred_element_type=f32)
-        return zt_l, zt_s
+        """A·ξ: LSC rows [OP, MNP] and per-dim static rows [RSP]."""
+        zl = None
+        zs = []
+        for d in dims:
+            x_d = jnp.sum(n3k * xi[d][:, None], axis=0)  # [MNP]
+            t = nd[d] * x_d[None, :]
+            zl = t if zl is None else zl + t
+            zs.append(jnp.sum(an * xi[d][None, :], axis=1))
+        return zl, zs
 
-    def adj(w_l, w_s):
-        """Aᵀ·w back to ξ-space [B, dk]."""
-        parts = []
-        for d in range(dim):
-            v_d = jnp.sum(nd[d] * w_l, axis=1)  # [B, MN]
-            parts.append(jnp.dot(v_d, N3k.T, preferred_element_type=f32))
-        g = jnp.concatenate(parts, axis=-1)  # [B, dk]
-        return g + jnp.dot(w_s, An, preferred_element_type=f32)
+    def adj(wl, ws):
+        """Aᵀ·w back to ξ-space, per dim [KP]."""
+        g = []
+        for d in dims:
+            v = jnp.sum(nd[d] * wl, axis=0)  # [MNP]
+            g.append(jnp.sum(n3k * v[None, :], axis=1)
+                     + jnp.sum(an * ws[d][:, None], axis=0))
+        return g
 
-    # ---- init state ---------------------------------------------------
-    xi_s[:] = xi0_r[:]
-    zl_s[:] = z0l_r[:]
-    zs_s[:] = z0s_r[:]
-    yl_s[:] = y0l_r[:]
-    ys_s[:] = y0s_r[:]
-    ax0_l, ax0_s = fwd(xi0_r[:])
-    axl_s[:] = ax0_l
-    axs_s[:] = ax0_s
-    best_s[:] = jnp.full((B, 1), jnp.inf, f32)
-    noimp_s[:] = jnp.zeros((B, 1), f32)
-    itd_s[:] = jnp.full((B, 1), float(max_iter), f32)
+    def one_iter(_, carry):
+        xi, zl, zs, yl, ys, axl, axs = carry
+        g = adj(rho_l * zl - yl, [rho_s * zs[d] - ys[d] for d in dims])
+        rhs = [sigma * xi[d] - qn[d] + g[d] for d in dims]
+        xi_t = []
+        for d in dims:
+            acc = None
+            for e in dims:
+                t = jnp.sum(kinv[d][e] * rhs[e][None, :], axis=1)
+                acc = t if acc is None else acc + t
+            xi_t.append(acc)
+        ztl, zts = fwd(xi_t)
+        xi_n = [alpha * xi_t[d] + (1.0 - alpha) * xi[d] for d in dims]
+        zml = alpha * ztl + (1.0 - alpha) * zl
+        zl_n = jnp.maximum(zml + yl / rho_l, ln_l)
+        yl_n = yl + rho_l * (zml - zl_n)
+        axl_n = alpha * ztl + (1.0 - alpha) * axl
+        zs_n, ys_n, axs_n = [], [], []
+        for d in dims:
+            zms = alpha * zts[d] + (1.0 - alpha) * zs[d]
+            z_d = jnp.minimum(jnp.maximum(zms + ys[d] / rho_s, ln_s[d]),
+                              un_s[d])
+            zs_n.append(z_d)
+            ys_n.append(ys[d] + rho_s * (zms - z_d))
+            axs_n.append(alpha * zts[d] + (1.0 - alpha) * axs[d])
+        return xi_n, zl_n, zs_n, yl_n, ys_n, axl_n, axs_n
 
     def chunk_step(state):
-        ck, _ = state
-        xi_prev = xi_s[:]
-
-        def one_iter(_, carry):
-            xi, z_l, z_s, y_l, y_s, Ax_l, Ax_s = carry
-            w_l = rho_l * z_l - y_l
-            w_s = rho_s[None, :] * z_s - y_s
-            rhs = sigma * xi - qn + adj(w_l, w_s)
-            # per-agent KKT-inverse matvec: elementwise + lane reduce
-            xi_t = jnp.sum(Kinv * rhs[:, None, :], axis=2)  # [B, dk]
-            zt_l, zt_s = fwd(xi_t)
-            xi_n = alpha * xi_t + (1.0 - alpha) * xi
-            zmix_l = alpha * zt_l + (1.0 - alpha) * z_l
-            zmix_s = alpha * zt_s + (1.0 - alpha) * z_s
-            zn_l = jnp.maximum(zmix_l + y_l / rho_l, ln_l)
-            zn_s = jnp.clip(zmix_s + y_s / rho_s[None, :], ln_s, un_s)
-            y_ln = y_l + rho_l * (zmix_l - zn_l)
-            y_sn = y_s + rho_s[None, :] * (zmix_s - zn_s)
-            Ax_ln = alpha * zt_l + (1.0 - alpha) * Ax_l
-            Ax_sn = alpha * zt_s + (1.0 - alpha) * Ax_s
-            return xi_n, zn_l, zn_s, y_ln, y_sn, Ax_ln, Ax_sn
-
-        carry = (xi_s[:], zl_s[:], zs_s[:], yl_s[:], ys_s[:],
-                 axl_s[:], axs_s[:])
-        xi, z_l, z_s, y_l, y_s, Ax_l, Ax_s = jax.lax.fori_loop(
-            0, CHUNK, one_iter, carry, unroll=True
-        )
-        xi_s[:] = xi
-        zl_s[:] = z_l
-        zs_s[:] = z_s
-        yl_s[:] = y_l
-        ys_s[:] = y_s
-        axl_s[:] = Ax_l
-        axs_s[:] = Ax_s
-
-        it = (ck + 1) * CHUNK
-        # feasibility (row-scaled; LSC rows are one-sided, unit scale)
-        viol_l = jnp.max(
-            jnp.max(jnp.maximum(ln_l - Ax_l, 0.0), axis=2), axis=1
-        )
-        viol_s = jnp.max(
-            jnp.maximum(jnp.maximum(ln_s - Ax_s, Ax_s - un_s), 0.0)
-            * sinv,
-            axis=-1,
-        )
-        feas = jnp.maximum(viol_l, viol_s) < stop_tol  # [B]
-        # iterate stall
-        dxi = jnp.max(jnp.abs(xi - xi_prev), axis=-1)
-        ximag = jnp.maximum(1.0, jnp.max(jnp.abs(xi), axis=-1))
-        stalled = dxi < eps_stall * ximag
-        # objective patience (feasible agents whose best objective has
-        # not improved for two chunks are done)
-        obj = jnp.zeros((B,), f32)
-        for d in range(dim):
-            xid = xi[:, d * K:(d + 1) * K]
-            Pxd = jnp.sum(Pn * xid[:, None, :], axis=2)  # [B, K]
-            obj = obj + jnp.sum((0.5 * Pxd + qn[:, d * K:(d + 1) * K])
-                                * xid, axis=-1)
-        best = best_s[:, 0]
+        it_state, ck, itd, best, noimp, _ = state
+        xi_prev = it_state[0]
+        it_state = jax.lax.fori_loop(0, CHUNK, one_iter, it_state)
+        xi, _, _, yl, ys, axl, axs = it_state
+        # feasibility of the actual iterate (row-scaled; LSC unit scale)
+        viol = jnp.max(jnp.maximum(ln_l - axl, 0.0))
+        for d in dims:
+            v = jnp.maximum(jnp.maximum(ln_s[d] - axs[d], axs[d] - un_s[d]),
+                            0.0)
+            viol = jnp.maximum(viol, jnp.max(v * sinv[d]))
+        feas = viol < stop_tol
+        # relative dual residual, iterate stall, objective
+        aty = adj(yl, ys)
+        rd = dmag = dxi = ximag = obj = None
+        for d in dims:
+            px = jnp.sum(pn * xi[d][None, :], axis=1)
+            terms = (
+                jnp.max(jnp.abs(px + qn[d] + aty[d])),
+                jnp.maximum(jnp.max(jnp.abs(px)),
+                            jnp.maximum(jnp.max(jnp.abs(aty[d])),
+                                        jnp.max(jnp.abs(qn[d])))),
+                jnp.max(jnp.abs(xi[d] - xi_prev[d])),
+                jnp.max(jnp.abs(xi[d])),
+                jnp.sum((0.5 * px + qn[d]) * xi[d]),
+            )
+            if rd is None:
+                rd, dmag, dxi, ximag, obj = terms
+            else:
+                rd = jnp.maximum(rd, terms[0])
+                dmag = jnp.maximum(dmag, terms[1])
+                dxi = jnp.maximum(dxi, terms[2])
+                ximag = jnp.maximum(ximag, terms[3])
+                obj = obj + terms[4]
+        opt = rd < eps_abs + eps_rel * dmag
+        stalled = dxi < 1e-4 * jnp.maximum(ximag, 1.0)
         improved = obj < best - 2e-4 * jnp.maximum(1.0, jnp.abs(obj))
-        best_s[:, 0] = jnp.where(feas & improved, obj, best)
-        noimp = noimp_s[:, 0]
-        noimp = jnp.where(feas & ~improved, noimp + 1.0, 0.0)
-        noimp_s[:, 0] = noimp
-
-        done_a = feas & (stalled | (noimp >= 2.0))
-        itd = itd_s[:, 0]
-        itd_s[:, 0] = jnp.where(
-            done_a & (itd == float(max_iter)), it.astype(f32), itd
-        )
-        return ck + 1, jnp.all(done_a)
+        best = jnp.where(feas & improved, obj, best)
+        noimp = jnp.where(feas & ~improved, noimp + 1, 0)
+        done = feas & (opt | stalled | (noimp >= 2))
+        itd = jnp.where(done & (itd == max_iter), (ck + 1) * CHUNK, itd)
+        return it_state, ck + 1, itd, best, noimp, done
 
     def cond(state):
-        ck, all_done = state
-        return (ck < n_chunks) & jnp.logical_not(all_done)
+        ck, done = state[1], state[5]
+        return (ck < n_chunks) & jnp.logical_not(done)
 
-    ck_f, _ = jax.lax.while_loop(
-        cond, chunk_step, (jnp.int32(0), jnp.asarray(False))
-    )
-
-    xi_o[:] = xi_s[:]
-    zl_o[:] = zl_s[:]
-    zs_o[:] = zs_s[:]
-    yl_o[:] = yl_s[:]
-    ys_o[:] = ys_s[:]
-    itdone_o[:] = itd_s[:]
-    iters_o[:] = jnp.full((B, 1), 1.0, f32) * (ck_f * CHUNK).astype(f32)
-
-
-def _rho_stat(cfg):
-    """Static-family per-row ρ, family-major (the exact order of
-    ops/qp.py::constraint_bounds rows after the LSC block)."""
-    from lsc_dr_planner_tpu.ops import qp as qpmod
-
-    dim, M, n = cfg.dim, cfg.M, cfg.n
-    N = cfg.N
-    parts = [
-        np.full(dim * M * n, cfg.rho * qpmod._RHO_SCALE["vel"]),
-        np.full(dim * M * (n - 1), cfg.rho * qpmod._RHO_SCALE["acc"]),
-    ]
-    if cfg.use_comm:
-        parts.append(
-            np.full(dim * (M * (M + 1) // 2),
-                    cfg.rho * qpmod._RHO_SCALE["comm"])
-        )
-    parts.append(np.full(dim * M * N, cfg.rho * qpmod._RHO_SCALE["bound"]))
-    return np.concatenate(parts).astype(np.float32)
+    xi0 = [xi0_r[d] for d in dims]
+    axl0, axs0 = fwd(xi0)
+    it_state = (xi0, zl0_r[...], [zs0_r[d] for d in dims], yl0_r[...],
+                [ys0_r[d] for d in dims], axl0, axs0)
+    state = (it_state, jnp.int32(0), jnp.int32(max_iter), jnp.float32(jnp.inf),
+             jnp.int32(0), jnp.bool_(False))
+    it_state, ck, itd, _, _, _ = jax.lax.while_loop(cond, chunk_step, state)
+    xi, zl, zs, yl, ys, _, _ = it_state
+    for d in dims:
+        xi_o[d] = xi[d]
+        zs_o[d] = zs[d]
+        ys_o[d] = ys[d]
+    zl_o[...] = zl
+    yl_o[...] = yl
+    itd_o[...] = jnp.full((1,), itd, jnp.int32)
+    ck_o[...] = jnp.full((1,), ck, jnp.int32)

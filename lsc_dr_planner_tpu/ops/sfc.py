@@ -6,7 +6,7 @@ new last box from point :396-412 / from convex hull :414-436, greedy
 axis-sweep expansion :820-881, goal-directed axis ordering
 setAxisCand :1134-1170, margin compensation :864-877).
 
-TPU-first redesign: boxes live in integer lattice coordinates; the
+Batched redesign: boxes live in integer lattice coordinates; the
 "any obstacle in this box?" predicate is a single 8-corner integral-image
 lookup (see world/grid.py) instead of the reference's O(cells) EDT scan.
 The greedy expansion is a bounded `lax.while_loop` doing one O(1) query

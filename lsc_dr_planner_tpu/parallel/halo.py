@@ -9,7 +9,7 @@ plain sharded step (parallel/mesh.py) realizes this with XLA-inserted
 all-gathers: every device receives the FULL fleet's candidate state —
 O(A) bytes per device per step, which caps scale-out.
 
-Halo design (TPU-native replacement):
+Halo design:
 
   * Agents are assigned to devices by SPATIAL TILE: the host sorts the
     fleet along one axis (`spatial_permutation`) so device i holds a
@@ -17,7 +17,8 @@ Halo design (TPU-native replacement):
     slab i then lives in slab i−h..i+h for a hop count h with
     slab_width·h ≥ communication_range.
   * Inside `shard_map`, each device `ppermute`s its local block to the
-    2·h ring neighbors and receives theirs — O(A/d · h) bytes over ICI
+    2·h ring neighbors and receives theirs — O(A/d · h) bytes over the
+    device links
     instead of O(A) — then runs the same top-k nearest-in-range
     selection the global gather uses, over its (2h+1)·A/d candidates.
   * The rest of the pipeline (LSC/SFC/goal LP/ADMM QP) is per-agent
@@ -65,7 +66,7 @@ def required_hops(pos: np.ndarray, n_shards: int, comm_range: float,
     # shard_map (and shard_step_inputs) require an evenly divisible agent
     # axis; with a ragged split the Al-strided slab starts below would
     # drift from the actual layout and under-estimate the hop bound,
-    # silently dropping in-range neighbors (ADVICE r4)
+    # silently dropping in-range neighbors
     if A % n_shards != 0:
         raise ValueError(
             f"agent count {A} must divide evenly into {n_shards} shards "
@@ -202,7 +203,7 @@ def make_halo_step(planner: FleetPlanner, mesh: Mesh, hops: int = 1,
         # in_specs depend on which optional StepInputs leaves are present
         # (e.g. occ_known / qp_y0 flipping between None and an array), so
         # the jitted shard_map is keyed on that presence tuple — one
-        # frozen entry would miss-shard later calls (ADVICE r4)
+        # frozen entry would miss-shard later calls
         key = tuple(v is None for v in inp_s)
         if key not in cache:
             in_specs = (fleet_specs, make_in_specs(inp_s))

@@ -5,10 +5,10 @@ The reference plans its agents sequentially in one process
 inter-agent information interface is exactly the per-neighbor state +
 previous trajectory broadcast (agent_manager.cpp:184-199, SURVEY §2.6).
 
-TPU-native design: the fleet's planning step is one SPMD program.
-Agent-axis leaves are sharded over the mesh's 'agents' axis; the
-neighbor exchange (the prev-traj tensor gather `x[order]`) becomes XLA
-collectives over ICI. Scenario batches (Monte-Carlo missions) shard
+Design: the fleet's planning step is one SPMD program. Agent-axis
+leaves are sharded over the mesh's 'agents' axis; the neighbor exchange
+(the prev-traj tensor gather `x[order]`) becomes XLA collectives over
+the device links. Scenario batches (Monte-Carlo missions) shard
 over a second 'scenarios' axis. World tables are replicated (read-only
 broadcast).
 """
@@ -65,7 +65,7 @@ def shard_step_inputs(mesh: Mesh, fleet: FleetArrays, inp: StepInputs,
 
 def make_sharded_step(planner: FleetPlanner, mesh: Mesh, axis: str = "agents"):
     """jit the planner step with agent-axis output shardings; XLA inserts
-    the ICI collectives for the neighbor gathers."""
+    the collectives for the neighbor gathers."""
     out_specs = StepOutputs(
         desired_ctrl=P(axis),
         current_goal=P(axis),

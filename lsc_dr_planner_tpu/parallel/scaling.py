@@ -3,16 +3,15 @@ range of mesh sizes and reports throughput + parallel efficiency.
 
 The reference has no distributed backend to compare against (SURVEY
 §2.6 — one process, sequential agents); the BASELINE north star asks
-for ≥85% scaling efficiency to 4 hosts. On real hardware the mesh axes
-ride ICI; under the virtual CPU mesh
+for ≥85% scaling efficiency to 4 hosts. On GPUs the mesh axes ride
+NVLink; under the virtual CPU mesh
 (--xla_force_host_platform_device_count) the harness proves the SPMD
-program and measures relative efficiency only — and on hosts with
-fewer physical cores than virtual devices the wall-clock table mostly
-measures oversubscription (this builder host has 2 cores; see
-MULTICHIP_scaling.json for the host-independent collective/FLOP audit
-via tools/collective_audit.py).
+program and measures relative efficiency only — on hosts with fewer
+physical cores than virtual devices the wall-clock table mostly
+measures oversubscription (tools/collective_audit.py gives the
+host-independent collective/FLOP audit).
 
-Run as a script for the MULTICHIP table:
+Run as a script for the scaling table:
     python -m lsc_dr_planner_tpu.parallel.scaling
 """
 

@@ -526,31 +526,12 @@ class FleetPlanner:
                 inp.current_goal, inp.next_waypoint, inp.pos,
                 initial_ctrl,
             )
-            # XLA's TPU gather lowering falls off a cliff at batch 1024
-            # exactly (measured: 100 µs/agent flat through A=992, then
-            # 1.6 ms/agent at A=1024 — 16×). The fused update expands
-            # n_lanes boxes per agent inside one batched loop, so the
-            # gather batch is A·n_lanes: chunk so chunks stay below the
-            # cliff.
-            n_lanes = (M + 2) if substep else 3
-            CHUNK = max(64, 1 << int(np.floor(np.log2(1000 / n_lanes))))
             if inp.occ_known is None:
-                if A * n_lanes >= 1024:
-                    new_sfc_lo, new_sfc_hi = jax.lax.map(
-                        update_sfc, sfc_args, batch_size=CHUNK
-                    )
-                else:
-                    new_sfc_lo, new_sfc_hi = jax.vmap(update_sfc)(sfc_args)
+                new_sfc_lo, new_sfc_hi = jax.vmap(update_sfc)(sfc_args)
             else:
-                if A * n_lanes >= 1024:
-                    new_sfc_lo, new_sfc_hi = jax.lax.map(
-                        lambda aw: update_sfc(aw[0], aw[1]),
-                        (sfc_args, inp.occ_known), batch_size=CHUNK,
-                    )
-                else:
-                    new_sfc_lo, new_sfc_hi = jax.vmap(update_sfc)(
-                        sfc_args, inp.occ_known
-                    )
+                new_sfc_lo, new_sfc_hi = jax.vmap(update_sfc)(
+                    sfc_args, inp.occ_known
+                )
             sfc_lo_w, sfc_hi_w = sfc.sfc_to_world(
                 gw, new_sfc_lo, new_sfc_hi, self.sfc_margin
             )
@@ -607,8 +588,12 @@ class FleetPlanner:
         terminal_mask = (seg_idx >= (M - tseg[:, None])).astype(f32)
 
         # LSC rows (dim-restricted dot products, reference
-        # traj_optimizer.cpp:399-437)
-        nrm = ls.normals[..., :dim]
+        # traj_optimizer.cpp:399-437). Empty neighbour slots get zero
+        # normals: their rows are inactive, but a normal left in them
+        # would still enter the KKT matrix, making the iterates depend on
+        # whichever agent filled the slot (it differs between the global
+        # gather and the halo exchange).
+        nrm = jnp.where(obs_valid[..., None, None], ls.normals[..., :dim], 0.0)
         # qp_safety_margin: tiny margin inflation so that solutions within
         # the ADMM feasibility tolerance still certify true separation
         # (the reference's simplex solutions are exact; ours are ε-accurate).
@@ -693,7 +678,7 @@ class FleetPlanner:
             new_goal=new_goal,
             new_sfc_lo=new_sfc_lo,
             new_sfc_hi=new_sfc_hi,
-            obs_pred=obs_pred,
+            obs_pred=jnp.where(obs_valid[..., None, None, None], obs_pred, 0.0),
         )
         if defer_qp:
             return deferred

@@ -1,6 +1,6 @@
 """Static world preprocessing: occupancy, blocked masks, distance fields.
 
-TPU-first replacement for the reference's octomap + DynamicEDTOctomap
+Batched replacement for the reference's octomap + DynamicEDTOctomap
 stack (reference: src/map_manager.cpp:59-98 builds the octree + EDT;
 CSV box rasterization :262-305; the EDT is queried per cell during SFC
 expansion, collision_constraints.cpp:779-809, and per grid node during

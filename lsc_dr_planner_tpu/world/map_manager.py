@@ -10,7 +10,7 @@ every neighbor within communication range in `broadcastMsgs`
 (multi_sync_simulator.cpp:335-337), both only when
 `world/use_global_map` is false.
 
-TPU-first redesign: the per-agent octree becomes a per-agent boolean
+Batched redesign: the per-agent octree becomes a per-agent boolean
 known-occupancy mask over the global rasterized grid [A, X, Y, Z].
 
   * sensing  = reveal occupied cells whose center lies within the

@@ -284,7 +284,7 @@ struct Solver {
     long long tie = 0;
 
     using OpenEnt = std::tuple<int, long long, int>;  // f1, tie, idx
-    // f2, f1, moves, -g, tie, idx — `moves` is a TPU-build tie-break
+    // f2, f1, moves, -g, tie, idx — `moves` is this build's tie-break
     // (prefer fewer non-wait transitions; SOC-free shuffles otherwise
     // survive and get walked physically by the committed-plan executor)
     using FocalEnt = std::tuple<int, int, int, int, long long, int>;

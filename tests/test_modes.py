@@ -1,5 +1,5 @@
 """End-to-end exercise of the shipped baseline planner/goal modes that
-mission benchmarks don't cover (VERDICT r4 #5):
+mission benchmarks don't cover:
 
   * Reciprocal-RSFC (reference: generateReciprocalRSFC,
     src/traj_planner.cpp:581-609) — symmetric crossing,

@@ -65,7 +65,7 @@ def test_montecarlo_sharded_scenarios(tmp_path):
     ]
 
 
-def test_replica_shares_statics_and_matches_fresh_build():
+def test_replica_shares_statics_and_matches_fresh_build(tmp_path):
     """A share_static_from replica must behave exactly like a freshly
     built simulator over the same mission (the statics are pure
     preprocessing), while actually sharing the heavy objects."""
@@ -79,9 +79,9 @@ def test_replica_shares_statics_and_matches_fresh_build():
                                 min_separation=1.2)
     p = Param(world_use_octomap=False, multisim_max_planner_iteration=30,
               qp_max_iter=60)
-    base = MultiSyncSimulator(p, m, log_dir="/tmp/mc_rep")
-    fresh = MultiSyncSimulator(p, m, log_dir="/tmp/mc_rep")
-    replica = MultiSyncSimulator(p, m, log_dir="/tmp/mc_rep",
+    base = MultiSyncSimulator(p, m, log_dir=str(tmp_path))
+    fresh = MultiSyncSimulator(p, m, log_dir=str(tmp_path))
+    replica = MultiSyncSimulator(p, m, log_dir=str(tmp_path),
                                  share_static_from=base)
     assert replica.planner is base.planner
     assert replica.coarse is base.coarse

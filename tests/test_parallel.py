@@ -46,7 +46,7 @@ def _tree_allclose(a, b, rtol=1e-4, atol=2e-4):
 @pytest.mark.parametrize("n_devices", [2, 8])
 def test_sharded_step_matches_unsharded(n_devices):
     """make_sharded_step over an N-device mesh ≡ the single-device step
-    (same program semantics; XLA inserts the ICI collectives for the
+    (same program semantics; XLA inserts the collectives for the
     neighbor gathers)."""
     A = 2 * n_devices
     planner, fleet, inp = graft._build(n_agents=A)
@@ -131,7 +131,7 @@ def test_scenario_axis_sharding():
 
 @requires_8dev
 def test_scaling_harness_smoke():
-    """The scaling harness used for the MULTICHIP table runs at every
+    """The scaling harness used for the scaling table runs at every
     mesh size and reports monotone-nonincreasing... no: virtual CPU
     devices give no real speedup — assert only that it measures."""
     from lsc_dr_planner_tpu.parallel.scaling import measure_scaling

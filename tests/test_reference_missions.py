@@ -11,6 +11,7 @@ reproduces its logged safety ratio with this repo's safety math.
 """
 
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -36,7 +37,7 @@ def _run_mission(mission_file, world_file, max_iter=600):
         mission_file, world_file=world_file,
         world_dimension=2, world_z_2d=param.world_z_2d,
     )
-    sim = MultiSyncSimulator(param, mission, log_dir="/tmp/test_ref_log")
+    sim = MultiSyncSimulator(param, mission, log_dir=tempfile.mkdtemp())
     return sim.run()
 
 
@@ -118,7 +119,7 @@ def test_reference_log_audit_parity():
 
 
 @pytest.mark.slow
-def test_forest10_10_dlsc_substep_end_to_end():
+def test_forest10_10_dlsc_substep_end_to_end(tmp_path):
     """DLSC sub-step replanning (ts=0.1 < dt=0.2) on the reference's
     forest10 headline mission: collision-free, zero excess, and flight
     time at least matching the LSC result (measured 15.3 s vs LSC's
@@ -138,7 +139,7 @@ def test_forest10_10_dlsc_substep_end_to_end():
         world_file=f"{REF}/world/forest/forest10.csv",
         world_dimension=2, world_z_2d=param.world_z_2d,
     )
-    sim = MultiSyncSimulator(param, mission, log_dir="/tmp/test_ref_log")
+    sim = MultiSyncSimulator(param, mission, log_dir=str(tmp_path))
     r = sim.run()
     assert not r["is_collided"]
     assert not r["qp_failed"]

@@ -226,14 +226,14 @@ def test_obstacle_observation_noise_wiring(tmp_path):
     assert res["safety_ratio_obs"] >= 1.0
 
 
-def test_groups_spatial_hash_matches_dense():
+def test_groups_spatial_hash_matches_dense(tmp_path):
     """The spatial-hash union-find grouping must match the O(A²) dense
     connected-components reference (multi_sync_simulator.cpp:160-194)."""
     rng = np.random.default_rng(7)
     for A, R in [(1, 2.0), (13, 1.5), (60, 3.0), (60, 0.4)]:
         m = generate_random_mission(A, [-6, -6, 0], [6, 6, 3], seed=int(R * 10) + A)
         p = _param(communication_range=R)
-        sim = MultiSyncSimulator(p, m, log_dir="/tmp/test_groups")
+        sim = MultiSyncSimulator(p, m, log_dir=str(tmp_path))
         sim.pos = rng.uniform([-6, -6, 0], [6, 6, 3], (A, 3))
         got = sim._groups()
 
@@ -257,7 +257,7 @@ def test_groups_spatial_hash_matches_dense():
         assert got == want, (A, R)
 
 
-def test_auto_layer_selection_on_reference_worlds():
+def test_auto_layer_selection_on_reference_worlds(tmp_path):
     """mapf_layer=auto must route corridor mazes to committed-MCP and
     open forests to the hybrid flow layer (thresholds from the 90-world
     sweep; see simulator._resolve_layer)."""
@@ -280,7 +280,7 @@ def test_auto_layer_selection_on_reference_worlds():
         p = Param(world_dimension=2, world_use_octomap=True)
         m = Mission.load(mf, world_file=wf, world_dimension=2,
                          world_z_2d=p.world_z_2d)
-        sim = MultiSyncSimulator(p, m, log_dir="/tmp/test_auto_layer")
+        sim = MultiSyncSimulator(p, m, log_dir=str(tmp_path))
         assert sim._layer == want, (mf, sim._layer)
 
 

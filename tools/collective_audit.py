@@ -1,7 +1,7 @@
-"""Collective audit of the sharded SPMD fleet step (VERDICT r2 item 4).
+"""Collective audit of the sharded SPMD fleet step.
 
-Wall-clock scaling cannot be demonstrated on this 2-CPU host (8 virtual
-devices oversubscribe 2 cores ~4x, so weak scaling degrades by
+Wall-clock scaling cannot be demonstrated on a CPU host with virtual
+devices (they oversubscribe the cores, so weak scaling degrades by
 construction). What CAN be verified host-independently:
 
   1. the per-device compiled HLO's collective ops — kind, count, and

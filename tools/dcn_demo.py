@@ -1,4 +1,4 @@
-"""Process-level DCN demonstration (VERDICT r4 #6): a 2-process
+"""Process-level DCN demonstration: a 2-process
 `jax.distributed` CPU run sharding the Monte-Carlo SCENARIO axis over a
 process-spanning mesh — the closest honest proxy this single-chip
 environment permits for the BASELINE north star (≥85% scaling to 4

@@ -1,5 +1,5 @@
 """Forest quality diagnosis: run one mission on CPU and report per-agent
-goal-reach times plus waypoint-layer statistics (VERDICT r2 item 2).
+goal-reach times plus waypoint-layer statistics.
 
 Usage: python tools/forest_diag.py [mission_idx] [--set forest10]
 """
@@ -8,7 +8,6 @@ import argparse
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -26,7 +25,10 @@ def main():
     ap.add_argument("--hl-nodes", type=int, default=5000)
     args = ap.parse_args()
 
+    from lsc_dr_planner_tpu import runtime
     from lsc_dr_planner_tpu.config import Param
+
+    runtime.setup_compile_cache()
     from lsc_dr_planner_tpu.mission import Mission
     from lsc_dr_planner_tpu.sim.simulator import MultiSyncSimulator
 
@@ -47,7 +49,7 @@ def main():
                   mapf_layer=args.layer, mapf_hl_nodes=args.hl_nodes)
     mission = Mission.load(mf, world_file=wf, world_dimension=2,
                            world_z_2d=param.world_z_2d)
-    sim = MultiSyncSimulator(param, mission, log_dir="/tmp/forest_diag")
+    sim = MultiSyncSimulator(param, mission, log_dir=os.path.join("log", "forest_diag"))
 
     A = sim.A
     reach_step = np.full(A, -1)

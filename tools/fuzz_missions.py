@@ -1,4 +1,4 @@
-"""Out-of-distribution deadlock fuzzing (VERDICT r3 item 6).
+"""Out-of-distribution deadlock fuzzing of the waypoint layer.
 
 The waypoint-layer escalation constants (retreat / no-progress / MCP
 fallback windows, sim/simulator.py) were tuned on the 90-mission
@@ -8,13 +8,14 @@ worlds (forest-like scatter and maze-like wall fields), random fleets
 finishes collision-free with zero dynamic-limit excess, no QP failure,
 and finite flight time (= no deadlock).
 
-Start/goal placement is rejection-sampled away from obstacles and
-checked for grid connectivity (a disconnected goal would read as a
+Worlds and missions come from `lsc_dr_planner_tpu.mission.random_world`
+and `make_mission`: start/goal placement is rejection-sampled away from
+obstacles and checked for grid connectivity (a disconnected goal would read as a
 deadlock and is a mission-generation artifact, not a planner failure).
 
 Usage:
-    PYTHONPATH= python tools/fuzz_missions.py --n 200 --out log/fuzz
-    PYTHONPATH= python tools/fuzz_missions.py --n 5 --smoke
+    python tools/fuzz_missions.py --n 200 --out log/fuzz
+    python tools/fuzz_missions.py --n 5 --smoke
 
 Idempotent per seed: completed seeds in the output JSONL are skipped.
 """
@@ -24,12 +25,11 @@ import json
 import os
 import sys
 import time
-from collections import deque
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 os.environ["JAX_PLATFORMS"] = "cpu"
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
@@ -37,150 +37,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-
-def random_world(rng, kind, half):
-    """Random obstacle boxes [N, 6] (cx, cy, cz, sx, sy, sz)."""
-    boxes = []
-    if kind == "forest":
-        n = int(rng.integers(10, 40))
-        for _ in range(n):
-            s = rng.uniform(0.3, 0.9)
-            cx, cy = rng.uniform(-half + 1, half - 1, 2)
-            boxes.append([cx, cy, 1.0, s, s, 2.0])
-    else:  # maze-like wall field
-        # Wall center lines snap to the 0.5 m MAPF-grid CELL-CENTER
-        # lattice, like the reference's maze worlds: a thin wall at an
-        # arbitrary offset can slice the transition between two free
-        # cell centers without marking either cell occupied — a world
-        # family outside the (cell-based) grid semantics of both the
-        # reference and this repo, which livelocks the waypoint layer
-        # by construction (measured, seed 2002).
-        def snap_center(v):
-            # grid NODES sit on multiples of 0.5 (build_coarse_grid)
-            return np.round(v / 0.5) * 0.5
-
-        n = int(rng.integers(6, 16))
-        for _ in range(n):
-            L = rng.uniform(1.0, 2.0 * half - 2.0)
-            cx, cy = rng.uniform(-half + 1, half - 1, 2)
-            if rng.random() < 0.5:
-                boxes.append([cx, snap_center(cy), 1.0, L, 0.1, 2.0])
-            else:
-                boxes.append([snap_center(cx), cy, 1.0, 0.1, L, 2.0])
-    return np.asarray(boxes).reshape(-1, 6)
-
-
-def _occ_grid(boxes, half, res, clearance):
-    n = int(np.ceil(2 * half / res))
-    occ = np.zeros((n, n), bool)
-    xs = -half + (np.arange(n) + 0.5) * res
-    for cx, cy, _, sx, sy, _ in boxes:
-        x0 = cx - sx / 2 - clearance
-        x1 = cx + sx / 2 + clearance
-        y0 = cy - sy / 2 - clearance
-        y1 = cy + sy / 2 + clearance
-        ix = np.nonzero((xs > x0) & (xs < x1))[0]
-        iy = np.nonzero((xs > y0) & (xs < y1))[0]
-        if len(ix) and len(iy):
-            occ[ix[0]:ix[-1] + 1, iy[0]:iy[-1] + 1] = True
-    return occ, xs
-
-
-def _connected(occ, a, b):
-    if occ[a] or occ[b]:
-        return False
-    seen = {a}
-    q = deque([a])
-    X, Y = occ.shape
-    while q:
-        x, y = q.popleft()
-        if (x, y) == b:
-            return True
-        for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
-            nx, ny = x + dx, y + dy
-            if 0 <= nx < X and 0 <= ny < Y and not occ[nx, ny] \
-                    and (nx, ny) not in seen:
-                seen.add((nx, ny))
-                q.append((nx, ny))
-    return False
-
-
-def make_mission(rng, A, boxes, half, radius=0.15):
-    """Random mission with obstacle-clear, pairwise-separated,
-    connectivity-checked starts/goals on the 0.5 m grid."""
-    from lsc_dr_planner_tpu.mission import generate_random_mission
-
-    res = 0.5
-    occ, xs = _occ_grid(boxes, half, res, clearance=radius + 0.2)
-
-    def box_clearance(pt):
-        """L2 distance from pt to the nearest box (2-D)."""
-        if len(boxes) == 0:
-            return np.inf
-        b = np.asarray(boxes)
-        dx = np.maximum(np.abs(pt[0] - b[:, 0]) - b[:, 3] / 2, 0.0)
-        dy = np.maximum(np.abs(pt[1] - b[:, 1]) - b[:, 4] / 2, 0.0)
-        return float(np.min(np.hypot(dx, dy)))
-
-    def cell_of(p):
-        return (int(np.clip((p[0] + half) / res, 0, len(xs) - 1)),
-                int(np.clip((p[1] + half) / res, 0, len(xs) - 1)))
-
-    free_cells = np.argwhere(~occ)
-    if len(free_cells) < 4 * A:
-        return None
-
-    def sample_set(exclude):
-        pts = []
-        for _ in range(A):
-            for _a in range(3000):
-                c = free_cells[rng.integers(len(free_cells))]
-                p = np.array([-half + (c[0] + 0.5) * res,
-                              -half + (c[1] + 0.5) * res])
-                p = np.round(p / res) * res
-                # the 0.5-lattice rounding can push edge cells OUT of
-                # the world box (e.g. 5.85 → 6.0 > half=5.9): an agent
-                # born outside the fine lattice is infeasible from step
-                # 0 and reads as a deadlock (measured, seed 1007) —
-                # a generation artifact, not a planner failure
-                if np.max(np.abs(p)) > half - 0.3:
-                    continue
-                if occ[cell_of(p)]:
-                    continue
-                # the ROUNDED point must itself be flyable-to: within
-                # radius+0.25 of a box face the fine-lattice inflation
-                # blocks its cell, the SFC can never contain it, and a
-                # goal there pins the goal LP 0.25 m short forever
-                # (measured, seed 2001 post-rounding-fix) — a
-                # generation artifact, not a planner failure
-                if box_clearance(p) < radius + 0.25:
-                    continue
-                if all(np.linalg.norm(p - q) >= 0.7 for q in pts + exclude):
-                    pts.append(p)
-                    break
-            else:
-                return None
-        return pts
-
-    starts = sample_set([])
-    if starts is None:
-        return None
-    goals = sample_set([])
-    if goals is None:
-        return None
-    for s, g in zip(starts, goals):
-        if not _connected(occ, cell_of(s), cell_of(g)):
-            return None
-
-    m = generate_random_mission(
-        A, [-half, -half, 0.0], [half, half, 2.5], radius=radius, seed=0,
-        min_separation=0.0,
-    )
-    m.world_boxes = boxes
-    for i, a in enumerate(m.agents):
-        a.start = np.array([starts[i][0], starts[i][1], 0.6])
-        a.goal = np.array([goals[i][0], goals[i][1], 0.6])
-    return m
+from lsc_dr_planner_tpu import runtime  # noqa: E402
+from lsc_dr_planner_tpu.mission import make_mission, random_world  # noqa: E402
 
 
 def run_case(seed, layer, A=None, amin=8, amax=32):
@@ -188,9 +46,8 @@ def run_case(seed, layer, A=None, amin=8, amax=32):
     from lsc_dr_planner_tpu.sim.simulator import MultiSyncSimulator
 
     rng = np.random.default_rng(seed)
-    # default 8-32 agents; the r5 crush-regime campaign passes
-    # --amin 40 --amax 64 (VERDICT r4 #2: the ≥40-agent regime at
-    # reference density was excluded in r4)
+    # default 8-32 agents; the crush-regime campaign passes
+    # --amin 40 --amax 64 (the ≥40-agent regime at reference density)
     A = A if A is not None else int(rng.integers(amin, amax + 1))
     kind = "forest" if rng.random() < 0.5 else "maze"
     # World size ~1.5× the reference benchmark's agent density
@@ -216,7 +73,8 @@ def run_case(seed, layer, A=None, amin=8, amax=32):
         multisim_max_planner_iteration=max_iter, profile_stages=False,
         mapf_layer=layer,
     )
-    sim = MultiSyncSimulator(param, mission, log_dir="/tmp/fuzz_log")
+    sim = MultiSyncSimulator(param, mission,
+                             log_dir=os.path.join(REPO, "log", "fuzz_run"))
     t0 = time.time()
     r = sim.run()
     r.update(seed=seed, layer=layer, A=A, kind=kind,
@@ -242,6 +100,7 @@ def main():
     ap.add_argument("--layers", default="hybrid,mcp",
                     help="comma list of forced layer modes per seed")
     args = ap.parse_args()
+    runtime.setup_compile_cache()
 
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "fuzz.jsonl")

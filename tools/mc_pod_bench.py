@@ -17,15 +17,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def bench_one(A, S, steps, mission, param):
-    import jax
-    import numpy as np
-
+    from lsc_dr_planner_tpu import runtime
     from lsc_dr_planner_tpu.sim.montecarlo import MonteCarloSimulator
 
     t0 = time.perf_counter()
-    with jax.default_device(jax.devices("cpu")[0]):
-        mc = MonteCarloSimulator(param, mission, n_scenarios=S,
-                                 max_noise=0.25, log_dir="/tmp/mc_pod")
+    mc = MonteCarloSimulator(param, mission, n_scenarios=S, max_noise=0.25,
+                             log_dir=os.path.join(runtime.REPO_ROOT, "log",
+                                                  "mc_pod"))
     t_build = time.perf_counter() - t0
 
     mc.step(0)  # warm-up + compile
@@ -66,8 +64,11 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from lsc_dr_planner_tpu import runtime
     from lsc_dr_planner_tpu.config import Param
     from lsc_dr_planner_tpu.mission import generate_random_mission
+
+    runtime.setup_compile_cache()
 
     A = args.A
     half = max(6.0, 0.7 * float(np.sqrt(A)))

@@ -1,4 +1,4 @@
-"""QP convergence forensics (VERDICT r2 item 7): classify the
+"""QP convergence forensics: classify the
 non-converged agents in the bench workload — primal infeasibility
 (which constraint family?) vs iteration cap — from the solver's own
 qp_residual / qp_iterations outputs.
@@ -33,13 +33,10 @@ def main():
     import bench
     from lsc_dr_planner_tpu.ops import qp, trajectory
 
-    dev = jax.devices()[0]
-    with jax.default_device(jax.devices("cpu")[0]):
-        p, planner, fleet, inp = bench.build_fleet(args.A)
-        fleet = jax.tree_util.tree_map(np.asarray, fleet)
-        inp = jax.tree_util.tree_map(np.asarray, inp)
-    fleet = jax.tree_util.tree_map(lambda x: jax.device_put(x, dev), fleet)
-    inp = jax.tree_util.tree_map(lambda x: jax.device_put(x, dev), inp)
+    from lsc_dr_planner_tpu import runtime
+
+    runtime.setup_compile_cache()
+    p, planner, fleet, inp = bench.build_fleet(args.A)
     step = bench.make_evolve_step(p, planner, fleet)
 
     full = jax.jit(planner._step_impl)

@@ -1,5 +1,4 @@
-"""Per-stage pipeline profile across fleet sizes — the diagnosis tool
-for the A=1024 single-chip throughput collapse (VERDICT r2 item 3).
+"""Per-stage pipeline profile across fleet sizes, on the default device.
 
 Runs the bench workload (bench.build_fleet) at A in {128, 256, 512,
 1024} and prints per-stage wall times from compiled-prefix differences
@@ -24,25 +23,16 @@ def profile(A, steps=3, world_side_override=None):
 
     import bench
 
-    dev = jax.devices()[0]
-    with jax.default_device(jax.devices("cpu")[0]):
-        if world_side_override is not None:
-            # monkey-patch the lattice extent: keep agent count A but the
-            # world of a side=world_side_override fleet
-            import numpy as _np
-            orig = bench.build_fleet
-
-            p, planner, fleet, inp = _build_fixed_world(A, world_side_override)
-        else:
-            p, planner, fleet, inp = bench.build_fleet(A)
-        fleet = jax.tree_util.tree_map(np.asarray, fleet)
-        inp = jax.tree_util.tree_map(np.asarray, inp)
-    fleet = jax.tree_util.tree_map(lambda x: jax.device_put(x, dev), fleet)
-    inp = jax.tree_util.tree_map(lambda x: jax.device_put(x, dev), inp)
+    if world_side_override is not None:
+        # keep agent count A but the world of a side=world_side_override
+        # fleet
+        p, planner, fleet, inp = _build_fixed_world(A, world_side_override)
+    else:
+        p, planner, fleet, inp = bench.build_fleet(A)
     step = bench.make_evolve_step(p, planner, fleet)
     for _ in range(3):
-        inp, conv = step(inp)
-    conv.block_until_ready()
+        inp, out = step(inp)
+    jax.block_until_ready(out)
     st = planner.measure_stage_times(fleet, inp, repeats=steps)
     st = {k: round(v * 1e3, 2) for k, v in st.items()}
     st["A"] = A
@@ -118,6 +108,9 @@ def main():
     ap.add_argument("--fixed-world", action="store_true",
                     help="hold the world at the A=1024 extent for all sizes")
     args = ap.parse_args()
+    from lsc_dr_planner_tpu import runtime
+
+    runtime.setup_compile_cache()
     sizes = [int(s) for s in args.sizes.split(",")]
     for A in sizes:
         st = profile(A, world_side_override=32 if args.fixed_world else None)

@@ -1,7 +1,7 @@
-"""Cross-run trajectory divergence localizer (VERDICT r3 weak #7).
+"""Cross-run trajectory divergence localizer.
 
 Compares two simulation CSVs of the SAME mission (e.g. a CPU-backend
-and a TPU-backend run, or two commits) and reports WHERE the runs first
+and a GPU-backend run, or two commits) and reports WHERE the runs first
 diverge — the diagnostic for chaotic flight-time drift: everything
 before the first divergence is bitwise-equal dynamics, so the step it
 reports is where backend arithmetic first flipped a decision (goal-LP
